@@ -1,23 +1,24 @@
-"""cadrays_tpu — a TPU-native differentiable progressive path tracer.
+"""cadrays_tpu — a differentiable progressive path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capability surface of
+A from-scratch JAX/XLA framework with the capability surface of
 CADRays (a GPU path tracer for CAD models): progressive unbiased path
 tracing with a double-layered BSDF, next-event estimation against
 directional / positional / environment lights, thin-lens and orthographic
 cameras, adaptive tile sampling, filmic tone mapping, a named scene graph
 with a scriptable command surface, mesh/CAD import and scene export —
-redesigned TPU-first:
+redesigned around array programs:
 
 * the integrator is a megakernel-free **wavefront** loop (`lax.scan` over
   bounces, statically shaped masked ray batches) instead of a GLSL
   megakernel;
 * ray/BVH traversal runs over a **threaded (stackless skip-link) BVH**
-  laid out as flat SoA arrays, vectorized over the ray wavefront;
+  laid out as flat SoA arrays; on an NVIDIA GPU a CUDA kernel walks it
+  one thread per ray (ops/traverse_cuda.py);
 * everything is differentiable: pixel gradients flow to material, light
   and camera parameters via detached-sampling custom VJPs;
 * scaling is `jax.sharding` / `shard_map` over a device mesh (rays/tiles
-  sharded, scene replicated in HBM, gradient `psum` over ICI) — not a
-  single-GPU GL context.
+  sharded, scene replicated in device memory, gradient `psum` across
+  devices) — not a single-GPU GL context.
 
 Reference capability surface: sasobadovinac/CADRays (see SURVEY.md).
 """

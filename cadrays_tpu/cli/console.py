@@ -13,6 +13,9 @@ import sys
 
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
+    from cadrays_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     from cadrays_tpu.cli.commands import (CommandError, Session,
                                            make_console)
     from cadrays_tpu.version import __version__

@@ -33,6 +33,9 @@ def main(argv=None) -> int:
     ap.add_argument("--log", default=None,
                     help="append structured JSONL events to this file")
     args = ap.parse_args(argv)
+    from cadrays_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     import numpy as np
 

@@ -1076,6 +1076,9 @@ def main(argv=None) -> int:
     ap.add_argument("--res", type=int, default=256)
     ap.add_argument("--spp-per-pass", type=int, default=1)
     args = ap.parse_args(argv)
+    from cadrays_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     from cadrays_tpu.cli.commands import Session, make_console
     from cadrays_tpu.integrator.progressive import progressive_step

@@ -7,9 +7,9 @@ Kc (coat, + coatRoughness + coat Fresnel), Kd (diffuse), Ks (glossy,
 Absorption (rgb + coeff, Beer-Lambert), with the energy-normalization rule
 max_channel(Kd + Ks + Kt) <= 1 (MaterialEditor.cxx:311-329).
 
-TPU-first design: materials are a struct-of-arrays pytree; eval/sample are
+Array design: materials are a struct-of-arrays pytree; eval/sample are
 branchless over a gathered wavefront (every lobe evaluated, blended by
-probability masks) so mixed-material batches run in lockstep on the VPU.
+probability masks) so mixed-material batches run as one vectorized op.
 Delta lobes (roughness below DELTA_ROUGHNESS, and smooth transmission) are
 excluded from eval/pdf and flagged on sample for MIS correctness.
 
@@ -26,7 +26,7 @@ Model:
 """
 from __future__ import annotations
 
-import flax.struct
+from cadrays_tpu.utils import struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,7 +52,7 @@ LOBE_TRANSMISSION = 3
 LOBE_NONE = 4
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Material:
     """Struct-of-arrays material table: every field has leading dims (M, ...).
 

@@ -5,10 +5,10 @@ ImportExport.cxx:164-231 `-coatFresnel/-baseFresnel {Schlick rgb | Constant w
 | Conductor n k | Dielectric n}` serialization): four variants selectable
 independently for the coat and base layers.
 
-TPU-first encoding: a Fresnel record is (type:int32, params:float32[4]);
+Array encoding: a Fresnel record is (type:int32, params:float32[4]);
 evaluation is a branchless `lax.switch`-free blend over all four closed
-forms so a whole wavefront of mixed materials evaluates in lockstep on the
-VPU (no divergence, no gather of function pointers).
+forms so a whole wavefront of mixed materials evaluates as one
+vectorized op (no divergence, no gather of function pointers).
 """
 from __future__ import annotations
 

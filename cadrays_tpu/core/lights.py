@@ -22,7 +22,7 @@ integrator's area/env sampling, not here.
 """
 from __future__ import annotations
 
-import flax.struct
+from cadrays_tpu.utils import struct
 import jax.numpy as jnp
 import numpy as np
 
@@ -33,7 +33,7 @@ LIGHT_DIRECTIONAL = 0
 LIGHT_POSITIONAL = 1
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Lights:
     """SoA light table (leading dim L). Differentiable leaves."""
 
@@ -104,8 +104,8 @@ def empty_lights() -> Lights:
 
 def pack_lights(lights: Lights) -> jnp.ndarray:
     """(L, 10) packed rows [kind color(3) intensity vec(3) smooth enabled]
-    so a per-ray light lookup is ONE row gather (TPU gathers bill per op;
-    `gather()`'s 7 field gathers at wavefront size cost ~7x this).
+    so a per-ray light lookup is ONE row gather instead of `gather()`'s
+    7 field gathers.
     Differentiable w.r.t. the light leaves."""
     return jnp.concatenate([
         lights.kind.astype(jnp.float32)[:, None], lights.color,

@@ -5,10 +5,8 @@ counts; here determinism is *structural*: every random number is a pure
 function of (pixel_id, sample_id, dimension, seed) via a PCG4D hash
 (Jarzynski & Olano, JCGT 2020 — public construction). No sampler state is
 carried across bounces, so the integrator stays a pure function — the
-property jit/vjp/shard_map need. This is the TPU-native replacement for a
-stateful per-thread GPU RNG.
-
-Works both in plain XLA and inside Pallas kernels (uint32 ops only).
+property jit/vjp/shard_map need. It replaces a stateful per-thread GPU
+RNG (uint32 ops only).
 """
 from __future__ import annotations
 

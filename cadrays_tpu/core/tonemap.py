@@ -8,18 +8,18 @@ Uncharted-2-style rational curve normalized by the white point.
 """
 from __future__ import annotations
 
-import flax.struct
+from cadrays_tpu.utils import struct
 import jax.numpy as jnp
 
 TONE_DISABLED = 0
 TONE_FILMIC = 1
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class ToneMapParams:
-    method: int = flax.struct.field(pytree_node=False, default=TONE_DISABLED)
-    exposure: jnp.ndarray = flax.struct.field(default_factory=lambda: jnp.float32(0.0))
-    white_point: jnp.ndarray = flax.struct.field(default_factory=lambda: jnp.float32(1.0))
+    method: int = struct.field(pytree_node=False, default=TONE_DISABLED)
+    exposure: jnp.ndarray = struct.field(default_factory=lambda: jnp.float32(0.0))
+    white_point: jnp.ndarray = struct.field(default_factory=lambda: jnp.float32(1.0))
 
 
 def _filmic_curve(x):

@@ -2,80 +2,19 @@
 
 All functions operate on arrays whose *last* axis is the vector dimension
 (3 for points/directions), broadcasting over every leading axis — the
-natural SoA/wavefront layout for the TPU VPU (8x128 lanes), as opposed to
-the per-ray scalar structs of a C++ tracer.
+SoA/wavefront layout that XLA vectorizes over the ray batch, as opposed
+to the per-ray scalar structs of a C++ tracer.
 """
 from __future__ import annotations
 
-import os as _os
-
 import jax.numpy as jnp
-
-# Component-form reduces (A/B, bench/profile_r5b): jnp.sum over the
-# 3-wide minor axis lowers to an XLA reduce that BREAKS elementwise
-# fusion chains — the round-5 trace showed the backward scan spending
-# most of its time in ~300 tiny fusions per step separated by such
-# reduces. Slicing the three components and adding them keeps the whole
-# chain elementwise-fusible.
-_COMPONENT = bool(_os.environ.get("CADRAYS_VM_COMPONENT", ""))
-
-import jax as _jax
-
-
-@_jax.custom_vjp
-def _dot3(a, b):
-    # forward: component form (elementwise-fusible, no XLA reduce)
-    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
-            + a[..., 2] * b[..., 2])
-
-
-def _dot3_fwd(a, b):
-    return _dot3(a, b), (a, b)
-
-
-def _dot3_bwd(res, g):
-    a, b = res
-    # backward: pure broadcast-multiply — the autodiff transpose of the
-    # sliced form would emit three pad+add chains instead
-    return g[..., None] * b, g[..., None] * a
-
-
-_dot3.defvjp(_dot3_fwd, _dot3_bwd)
-
-
-@_jax.custom_vjp
-def _lum3(rgb):
-    return (0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1]
-            + 0.0722 * rgb[..., 2])
-
-
-def _lum3_fwd(rgb):
-    return _lum3(rgb), None
-
-
-def _lum3_bwd(_, g):
-    w = jnp.asarray([0.2126, 0.7152, 0.0722], dtype=g.dtype)
-    return (g[..., None] * w,)
-
-
-_lum3.defvjp(_lum3_fwd, _lum3_bwd)
 
 
 def dot(a: jnp.ndarray, b: jnp.ndarray, keepdims: bool = False) -> jnp.ndarray:
-    if _COMPONENT and a.shape[-1] == 3 and a.dtype == b.dtype:
-        s = _dot3(a, jnp.broadcast_to(b, a.shape) if b.shape != a.shape
-                  else b)
-        return s[..., None] if keepdims else s
     return jnp.sum(a * b, axis=-1, keepdims=keepdims)
 
 
 def cross(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    if _COMPONENT and a.shape[-1] == 3:
-        ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
-        bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
-        return jnp.stack([ay * bz - az * by,
-                          az * bx - ax * bz,
-                          ax * by - ay * bx], axis=-1)
     return jnp.cross(a, b)
 
 
@@ -141,10 +80,6 @@ def to_local(world: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
 
 
 def luminance(rgb: jnp.ndarray, keepdims: bool = False) -> jnp.ndarray:
-    if _COMPONENT and rgb.shape[-1] == 3 \
-            and rgb.dtype == jnp.float32:
-        s = _lum3(rgb)
-        return s[..., None] if keepdims else s
     w = jnp.asarray([0.2126, 0.7152, 0.0722], dtype=rgb.dtype)
     return jnp.sum(rgb * w, axis=-1, keepdims=keepdims)
 

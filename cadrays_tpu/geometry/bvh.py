@@ -1,9 +1,8 @@
-"""Threaded (skip-link) BVH: SAH build on host, stackless traversal on TPU.
+"""Threaded (skip-link) BVH: SAH build on host, stackless traversal on device.
 
 Design rationale. The reference delegates its two-level BVH to OCCT
-("acceleration structures from OCCT", README.md:16-18); a CUDA-style
-short-stack traversal maps badly onto a lockstep vector machine. Instead
-we lay the tree out in depth-first order and store, per node, the index of
+("acceleration structures from OCCT", README.md:16-18). We lay the tree
+out in depth-first order and store, per node, the index of
 the node that follows its whole subtree (``skip``). Traversal is then a
 single `while` loop with *no stack at all*:
 
@@ -14,9 +13,10 @@ single `while` loop with *no stack at all*:
             else:    node = node + 1          # descend into left child
         else:        node = skip[node]        # jump over the subtree
 
-Every ray in the wavefront executes the same loop; divergence costs
-iterations, not correctness — ideal for the TPU VPU and for a Pallas
-kernel. Triangles are reordered so each leaf owns a contiguous range.
+Every ray executes the same loop with no per-ray stack: the XLA walk
+(ops/traverse.trace_gather) steps the whole wavefront in lockstep, the
+CUDA kernel (native/traverse.cu) runs it in one thread per ray.
+Triangles are reordered so each leaf owns a contiguous range.
 
 Build: binned SAH (16 bins) with median-split fallback, max leaf size
 configurable. Pure numpy; a C++ builder (cadrays_tpu/native) accelerates
@@ -34,7 +34,7 @@ SAH_BINS = 16
 
 @dataclasses.dataclass
 class ThreadedBVH:
-    """Flat SoA threaded BVH ready for HBM upload."""
+    """Flat SoA threaded BVH ready for device upload."""
 
     node_min: np.ndarray  # (N, 3) float32
     node_max: np.ndarray  # (N, 3) float32

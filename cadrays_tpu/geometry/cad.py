@@ -14,7 +14,7 @@ Backends probed in order:
   * `cadquery` when installed;
   * a user-registered callable via `register_tessellator`.
 
-None are present in the bare TPU image — `load_cad` then raises a
+When none is installed, `load_cad` raises a
 precise, actionable error (listing the formats that *are* native:
 OBJ/PLY/STL/glTF) rather than failing deep in the pipeline.
 """

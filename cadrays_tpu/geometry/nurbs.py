@@ -6,7 +6,7 @@ driven via `testreadstep`/`testreadiges`, ImportSettingsEditor.cxx:317-370).
 This module is the framework's own evaluator: vectorized Cox–de Boor over
 parameter arrays, with first derivatives for normals and curvature-driven
 sampling. Host-side geometry prep is numpy by design — it runs once per
-import, the TPU only ever sees the tessellated triangles.
+import, the device only ever sees the tessellated triangles.
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ in the material panel (MaterialEditor.cxx:1128-1299); Assimp's GenUVCoords
 post-process provides the same for imported meshes (`rtmeshread -genuv`,
 MeshImporter.cxx:73-97).
 
-TPU-native equivalents (host-side, numpy — runs once per edit, the
+Native equivalents (host-side, numpy — runs once per edit, the
 result is a static per-vertex array the shading kernels gather):
 
 - ``normalize_part_uvs``: CAD meshes from the STEP/IGES tessellator

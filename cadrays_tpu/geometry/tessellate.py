@@ -9,7 +9,7 @@ refined by longest-edge bisection until the chord deviation from the true
 surface is below the deflection tolerance — the same user knob OCCT's
 `incmesh <shape> <deflection>` exposes (preview.tcl:24).
 
-Everything is host-side numpy: it runs once per import; the TPU consumes
+Everything is host-side numpy: it runs once per import; the device consumes
 only the resulting triangle arrays.
 """
 from __future__ import annotations

@@ -6,8 +6,9 @@ high-variance tiles (tile count knob, debug tile view). On the reference
 it is a GPU-vendor-gated OCCT feature; here it is a first-class part of
 the integrator.
 
-TPU redesign (SURVEY.md §7.3 hard part #6 "adaptive tiling under SPMD"):
-chips run in lockstep, so per-tile *variable* work is forbidden. Instead
+SPMD design (SURVEY.md §7.3 hard part #6 "adaptive tiling under SPMD"):
+devices run one program on static shapes, so per-tile *variable* work is
+forbidden. Instead
 every adaptive round spends a **fixed budget of S = W*H sample slots**;
 what varies is the slot->pixel mapping, computed on-device from the
 accumulated per-tile error:
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 from functools import partial
 
-import flax.struct
+from cadrays_tpu.utils import struct
 import jax
 import jax.numpy as jnp
 
@@ -40,7 +41,7 @@ from cadrays_tpu.integrator.wavefront import render_sample
 from cadrays_tpu.scene.flatten import SceneData
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class AdaptiveState:
     accum: jnp.ndarray  # (H*W, 3) radiance sum
     accum_sq: jnp.ndarray  # (H*W,) luminance^2 sum

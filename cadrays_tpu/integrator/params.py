@@ -7,12 +7,12 @@ Graphic3d_RenderingParams (SettingsWidget.cxx: render mode GI/RT/raster
 screen sampling + tiles :427-484, RT-mode toggles :575-607).
 
 Static fields (python values) specialize the jitted integrator; traced
-fields (jnp scalars) can change without recompilation — the same split the
-XLA compilation model forces on any TPU renderer.
+fields (jnp scalars) can change without recompilation — the split that
+XLA's compilation model forces on a jitted renderer.
 """
 from __future__ import annotations
 
-import flax.struct
+from cadrays_tpu.utils import struct
 import jax.numpy as jnp
 
 from cadrays_tpu.core.tonemap import ToneMapParams
@@ -24,51 +24,49 @@ class RenderMode:
     RASTER = "raster"  # rasterization preview (direct shading, no shadows)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class RenderParams:
     # --- static (recompile on change) -----------------------------------
-    mode: str = flax.struct.field(pytree_node=False, default=RenderMode.GI)
-    ray_depth: int = flax.struct.field(pytree_node=False, default=5)  # 1..32
-    two_sided: bool = flax.struct.field(pytree_node=False, default=True)
-    coherent: bool = flax.struct.field(pytree_node=False, default=False)
-    adaptive: bool = flax.struct.field(pytree_node=False, default=False)
+    mode: str = struct.field(pytree_node=False, default=RenderMode.GI)
+    ray_depth: int = struct.field(pytree_node=False, default=5)  # 1..32
+    two_sided: bool = struct.field(pytree_node=False, default=True)
+    coherent: bool = struct.field(pytree_node=False, default=False)
+    adaptive: bool = struct.field(pytree_node=False, default=False)
     # debug tile view: display the adaptive sample-density heatmap
     # instead of the radiance image (SettingsWidget.cxx:443-449)
-    adaptive_debug: bool = flax.struct.field(pytree_node=False,
+    adaptive_debug: bool = struct.field(pytree_node=False,
                                              default=False)
-    tile_size: int = flax.struct.field(pytree_node=False, default=32)
-    rr_start: int = flax.struct.field(pytree_node=False, default=3)
+    tile_size: int = struct.field(pytree_node=False, default=32)
+    rr_start: int = struct.field(pytree_node=False, default=3)
     # RT-mode toggles (SettingsWidget.cxx:575-607)
-    rt_shadows: bool = flax.struct.field(pytree_node=False, default=True)
-    rt_reflections: bool = flax.struct.field(pytree_node=False, default=True)
+    rt_shadows: bool = struct.field(pytree_node=False, default=True)
+    rt_reflections: bool = struct.field(pytree_node=False, default=True)
     # RT-mode adaptive anti-aliasing (the reference's FSAA checkbox):
     # luminance-contrast edge mask + 4 rotated-grid subsamples traced
     # only on edge lanes (integrator/whitted.py)
-    rt_aa: bool = flax.struct.field(pytree_node=False, default=False)
-    # sort bounce rays by (octant, origin cell) before traversal — packet
-    # coherence for the TPU kernels; pure reordering, estimator unchanged
-    sort_rays: bool = flax.struct.field(pytree_node=False, default=True)
+    rt_aa: bool = struct.field(pytree_node=False, default=False)
+    # sort bounce rays by (octant, origin cell) before traversal so that
+    # neighbouring lanes walk similar paths; pure reordering, estimator
+    # unchanged. These two defaults were tuned for an earlier platform
+    # and have not been re-measured on the GPU kernel.
+    sort_rays: bool = struct.field(pytree_node=False, default=True)
     # re-sort cadence: permute the wavefront on bounces where
-    # bounce % sort_every == 0. Measured on TPU (bench/profile_r4b): the
-    # permutation costs ~4.9 ms fwd + ~3.5 ms bwd per bounce at 262k
-    # lanes but skipping it costs MORE in traversal (fwd 113.9 ms
-    # sorted-every vs 127.1 every-other vs 140.4 unsorted), so the
-    # default stays 1; the knob remains for low-depth configs.
-    sort_every: int = flax.struct.field(pytree_node=False, default=1)
+    # bounce % sort_every == 0
+    sort_every: int = struct.field(pytree_node=False, default=1)
     # GI rendering via the persistent wavefront
-    # (integrator/persistent.py): ~1.5x sample throughput from lane
-    # regeneration, with a host-side top-up loop guaranteeing every
-    # per-pixel quota completes (integrator/progressive.py). ON by
-    # default since round 5 — it is the production path the headline
-    # bench measures; the fixed-depth wavefront stays selectable
+    # (integrator/persistent.py): lane regeneration, with a host-side
+    # top-up loop guaranteeing every per-pixel quota completes
+    # (integrator/progressive.py). ON by default — it is the production
+    # path the headline bench measures; the fixed-depth wavefront stays
+    # selectable
     # (vrenderparams -persistent off) and keeps its own goldens.
-    persistent: bool = flax.struct.field(pytree_node=False, default=True)
+    persistent: bool = struct.field(pytree_node=False, default=True)
 
     # --- traced ----------------------------------------------------------
-    radiance_clamp: jnp.ndarray = flax.struct.field(
+    radiance_clamp: jnp.ndarray = struct.field(
         default_factory=lambda: jnp.float32(30.0))  # 1..1000
-    background_color: jnp.ndarray = flax.struct.field(
+    background_color: jnp.ndarray = struct.field(
         default_factory=lambda: jnp.zeros(3, jnp.float32))
-    seed: jnp.ndarray = flax.struct.field(
+    seed: jnp.ndarray = struct.field(
         default_factory=lambda: jnp.uint32(0))
-    tonemap: ToneMapParams = flax.struct.field(default_factory=ToneMapParams)
+    tonemap: ToneMapParams = struct.field(default_factory=ToneMapParams)

@@ -18,8 +18,8 @@ estimator as `spp` calls to `render_sample` — only the RNG dimension
 pairing differs (bounce dims are indexed by global step, not
 bounce-in-sample, which keeps streams decorrelated but makes the two
 paths statistically rather than bitwise equal). Lanes that finish their
-quota go dead (t_max=0, sorted to the wavefront tail — near-free in the
-packet kernels); `n_steps` bounds the scan, and the returned `done_cnt`
+quota go dead (t_max=0, sorted to the wavefront tail; traversal skips
+them); `n_steps` bounds the scan, and the returned `done_cnt`
 says how many samples actually completed (callers loop until the quota
 is met, integrator/progressive-style, or size n_steps with slack:
 average path length is ~2.7 bounces at depth 5, so
@@ -320,9 +320,7 @@ def render_persistent_pool(scene: SceneData, camera: Camera,
         next_sid = st2["sid"] + 1
         regen_same = retire & (next_sid < item_end)
         # item finished -> pop a new one from the pool. Exclusive prefix
-        # sum via associative_scan: jnp.cumsum lowers to a reduce-window
-        # on TPU whose cost at 262k lanes is material; the log-depth
-        # scan lowering is not.
+        # sum via a log-depth associative_scan.
         want_item = retire & (next_sid >= item_end)
         want_i32 = want_item.astype(jnp.int32)
         rank = jax.lax.associative_scan(jnp.add, want_i32) - want_i32
@@ -377,10 +375,8 @@ def render_persistent_pool(scene: SceneData, camera: Camera,
 
     # Final banking: ONE (R*K)-row scatter-add of the banked ROWS. Sum
     # and count share one (.., 4) operand and all K slots share one
-    # index vector — XLA's scatter combiner otherwise merges per-slot
-    # scatters into a variadic scatter that trips an XLA:TPU emitter
-    # CHECK (scatter_emitter.cc: operand_indices.size() == 1).  Counts
-    # stay exact as f32 (< 2^24).
+    # index vector, one scatter instead of K. Counts stay exact as f32
+    # (< 2^24).
     ex = split_extra(state["extra"])
     pk = ex["bank_row"].reshape(-1)                      # (R*K,)
     valid = pk >= 0

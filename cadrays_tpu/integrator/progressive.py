@@ -3,7 +3,7 @@
 Contract: the reference accumulates one sample pass per Redraw into
 ping-pong FBOs and restarts accumulation whenever the camera world-view
 state changes (AppViewer.cxx:979-984, 1045-1047; AppGui.cxx:122-136
-`myAccumFrames`). TPU equivalent: the accumulator is a plain sharded
+`myAccumFrames`). Here the accumulator is a plain sharded
 array in a pytree; "restart" is comparing a fingerprint of the
 scene/camera/params snapshot and zeroing the state. The state is also the
 resumable render checkpoint (SURVEY.md §5 checkpoint/resume) — serialize
@@ -19,7 +19,7 @@ from __future__ import annotations
 import hashlib
 from typing import Optional
 
-import flax.struct
+from cadrays_tpu.utils import struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,13 +30,13 @@ from cadrays_tpu.integrator.renderer import render_image
 from cadrays_tpu.scene.flatten import SceneData
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class ProgressiveState:
     accum: jnp.ndarray  # (H, W, 3) running radiance *sum*
     weight: jnp.ndarray  # (H, W) per-pixel sample counts
     accum_sq: jnp.ndarray  # (H, W) luminance^2 sum (adaptive variance)
     spp: jnp.ndarray  # scalar int32 — accumulated passes (budget units)
-    fingerprint: str = flax.struct.field(pytree_node=False, default="")
+    fingerprint: str = struct.field(pytree_node=False, default="")
 
     @property
     def image(self) -> jnp.ndarray:

@@ -2,8 +2,7 @@
 
 Reference capability: OCCT's GLSL *megakernel* path tracer with NEE,
 double-layer BSDF and progressive accumulation [OCCT-contract, SURVEY.md
-§2.5]. TPU redesign: a megakernel's per-thread control flow is hostile to
-a lockstep vector machine, so the integrator is a **wavefront**: one
+§2.5]. Here the integrator is a **wavefront** instead: one
 statically-shaped batch of rays advances through `lax.scan` over bounces;
 dead lanes are masked, never compacted (static shapes are an XLA
 requirement — SURVEY.md §7.3 hard part #3). Each scan step does:
@@ -51,18 +50,6 @@ _DIMS_PER_BOUNCE = 8
 
 def _rng_dim(bounce, slot):
     return _DIMS_PER_BOUNCE * bounce + slot + 16  # 0..15 reserved for camera
-
-
-# A/B experiment (bench/profile_r5b): additionally save the shade-chain
-# outputs as remat residuals so the backward recompute shortens, at
-# ~12 MB/step of extra residual HBM traffic.
-import os as _os
-
-_SAVE_SHADE = bool(_os.environ.get("CADRAYS_SAVE_SHADE", ""))
-
-
-def _sv(x):
-    return checkpoint_name(x, "trace") if _SAVE_SHADE else x
 
 
 def build_wavefront(scene: SceneData, camera: Camera,
@@ -121,8 +108,7 @@ def build_wavefront(scene: SceneData, camera: Camera,
 
     # One (T, C) row per triangle: geometry + its full material. Built
     # once per sample (loop-invariant -> hoisted out of the bounce scan);
-    # shading then costs ONE per-ray row gather per bounce instead of ~30
-    # (ops/hit.py measurement: TPU gathers bill per op, not per byte).
+    # shading then costs ONE per-ray row gather per bounce instead of ~30.
     shade_tab = build_shade_table(scene.geometry, scene.materials)
     light_tab = pack_lights(scene.lights) if has_lights else None
     em_tab = _build_emissive_table(scene) if has_emissive else None
@@ -130,9 +116,9 @@ def build_wavefront(scene: SceneData, camera: Camera,
     def bounce_step(state, bounce):
         o, d = state["origin"], state["direction"]
         bd0 = state["bdepth"] == 0  # first bounce OF THIS LANE'S SAMPLE
-        # Dead lanes trace with t_max=0: the packet kernel treats them as
-        # closed, so blocks of dead lanes (sorted to the tail below) exit
-        # after one root visit — free compaction under static shapes.
+        # Dead lanes trace with t_max=0: the CUDA kernel skips their walk
+        # (and the sort below gathers them at the tail), so they cost
+        # next to nothing under static shapes.
         res = trace(scene.geometry, o, d,
                     jnp.where(state["alive"], INF, 0.0))
         # Rematerialization contract (see the jax.checkpoint wrap at the
@@ -223,8 +209,7 @@ def build_wavefront(scene: SceneData, camera: Camera,
             u = rng4(state["pix"], state["sid"], bounce, _DIM_NEE)
             if scene.lights.count == 1:
                 # static single-light row: a broadcast instead of a per-ray
-                # row gather (TPU gathers bill ~3.1 ms per op at wavefront
-                # size — round-4 profiling) and no scatter in the backward
+                # row gather, and no scatter in the backward
                 lrows = jnp.broadcast_to(light_tab[0],
                                          (R,) + light_tab.shape[1:])
             else:
@@ -236,15 +221,13 @@ def build_wavefront(scene: SceneData, camera: Camera,
                                         "trace")
             ls = sample_light_rows(lrows, h["position"], u[1], u[2])
             f, _ = eval_bsdf(mat, wo, ls["wi"], n)
-            f = _sv(f)
             cos_i = jnp.clip(vm.dot(ls["wi"], n), 0.0, 1.0)
             vis_need = hit & ls["valid"] & (cos_i > 0.0)
             contrib = ls["contrib"] * f * (cos_i * scene.lights.count)[..., None]
             # Positional-light shadow rays are traced FROM the light
             # toward the surface: occlusion is symmetric, and a shared
-            # origin makes the packet walk the tree like primary rays
-            # (~90x faster than incoherent surface-origin rays on the
-            # packet kernels). Directional lights have no finite origin.
+            # origin makes neighbouring lanes walk the tree alike, as
+            # primary rays do. Directional lights have no finite origin.
             rev = (ls["dist"] < 1e29)[..., None]
             lpt = h["position"] + ls["wi"] * ls["dist"][..., None]
             o_sh = jnp.where(
@@ -259,7 +242,6 @@ def build_wavefront(scene: SceneData, camera: Camera,
             u = rng4(state["pix"], state["sid"], bounce, _DIM_NEE + 1)
             em = _sample_emissive(scene, em_tab, h["position"], u)
             f, pdf_b = eval_bsdf(mat, wo, em["wi"], n)
-            f, pdf_b = _sv(f), _sv(pdf_b)
             cos_i = jnp.clip(vm.dot(em["wi"], n), 0.0, 1.0)
             vis_need = hit & em["valid"] & (cos_i > 0.0)
             pdf_sa_det = jax.lax.stop_gradient(em["pdf_sa"])
@@ -279,7 +261,6 @@ def build_wavefront(scene: SceneData, camera: Camera,
             u = rng4(state["pix"], state["sid"], bounce, _DIM_NEE + 2)
             wi_e, rad_e, pdf_e = envops.sample_env(scene.envmap, u[0], u[1])
             f, pdf_b = eval_bsdf(mat, wo, wi_e, n)
-            f, pdf_b = _sv(f), _sv(pdf_b)
             cos_i = jnp.clip(vm.dot(wi_e, n), 0.0, 1.0)
             vis_need = hit & (pdf_e > 0.0) & (cos_i > 0.0)
             pdf_e_det = jax.lax.stop_gradient(pdf_e)
@@ -312,7 +293,6 @@ def build_wavefront(scene: SceneData, camera: Camera,
         # ---- BSDF sampling ---------------------------------------------
         u = jnp.stack(rng4(state["pix"], state["sid"], bounce, _DIM_BSDF), axis=-1)
         bs = sample_bsdf(mat, wo, n, u, front=h["front"])
-        bs = {k: _sv(v) for k, v in bs.items()}
         new_dir = bs["wi"]
         new_origin = offset_ray_origin(h["position"], h["n_geom"], new_dir)
         throughput_next = throughput * bs["weight"]
@@ -363,24 +343,15 @@ def build_wavefront(scene: SceneData, camera: Camera,
         )
         if params.sort_rays:
             # One wavefront-wide permutation per sorted bounce: live lanes
-            # sorted by (direction octant, origin Morton cell) so the next
-            # bounce's closest-hit AND shadow packets are coherent; dead
-            # lanes sink to tail blocks, which the packet kernels retire
-            # after a single root visit (t_max=0). A/B on bounce-1 rays
-            # (bench/profile notes): unsorted 6.1 M/s, octant|morton
-            # 11.2 M/s, (tri_id|octant) 10.0 M/s — morton wins. The state
-            # is packed into a single matrix so the permutation is ONE
-            # row gather, not one per field (a per-field tree_map permute
-            # measured 9x slower on TPU).
-            #
-            # Cadence (round 4): the permutation costs ~4.9 ms fwd and its
-            # VJP ~3.5 ms bwd, so `sort_every` skips it on off-bounces —
-            # lanes then keep the previous bounce's block assignment
-            # (origins stay coherent; direction octants shuffle), which
-            # measures faster end-to-end than sorting every bounce. The
-            # permuted state is itself a saved residual: recomputing the
-            # gather in the backward costs ~3.1 ms vs ~0.15 ms of HBM
-            # residual traffic for (R, 20) floats.
+            # sorted by (direction octant, origin Morton cell) so that
+            # neighbouring lanes of the next bounce's closest-hit AND
+            # shadow queries take similar paths through the tree; dead
+            # lanes (t_max=0, which skip the walk) sink to the tail. The
+            # state is packed into a single matrix so the permutation is
+            # ONE row gather, not one per field. `sort_every` skips the
+            # permutation on off-bounces (lanes keep the previous
+            # bounce's order). The permuted state is a saved residual, so
+            # the backward does not recompute the gather.
             def _sorted(m):
                 s = _unpack_state(m)
                 key = _coherence_key(scene.geometry, s["origin"],
@@ -399,11 +370,10 @@ def build_wavefront(scene: SceneData, camera: Camera,
             new_state = _unpack_state(checkpoint_name(packed, "trace"))
         return new_state, jnp.sum(state["alive"].astype(jnp.int32))
 
-    # One remat boundary per bounce: residual traffic through the scan is
-    # the dominant backward cost (251 ms fwd+bwd vs 114 fwd measured
-    # before); saving only the named traversal/permutation results keeps
-    # the backward from re-walking the BVH while the elementwise shading
-    # chain is recomputed on the fly.
+    # One remat boundary per bounce: saving only the named traversal/
+    # permutation results keeps the backward from re-walking the BVH
+    # while the elementwise shading chain is recomputed on the fly, and
+    # keeps residual traffic through the scan small.
     bounce_fn = jax.checkpoint(
         bounce_step,
         policy=jax.checkpoint_policies.save_only_these_names("trace"))

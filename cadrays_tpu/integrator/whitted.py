@@ -3,7 +3,7 @@
 Contract: the reference's render-mode switch offers GI (path tracing),
 RT (Whitted ray tracing with toggles for shadows / specular reflections /
 depth 1-10) and OpenGL rasterization (SettingsWidget.cxx:261-302,
-575-618). The TPU equivalents share the scene/material/traversal stack
+575-618). Both share the scene/material/traversal stack
 with the GI integrator:
 
 * RT: deterministic primary + mirror-reflection chain (`lax.scan` over
@@ -69,12 +69,12 @@ def render_whitted(scene: SceneData, camera: Camera, params: RenderParams,
     """Deterministic Whitted pass -> (H*W, 3) radiance.
 
     params.rt_aa (SettingsWidget.cxx:575-607, the RT-mode adaptive
-    anti-aliasing checkbox): TPU-native adaptive FSAA under static
+    anti-aliasing checkbox): adaptive FSAA under static
     shapes — the center pass renders everywhere, a luminance-contrast
     edge mask is computed from it (catches silhouettes AND shadow /
     highlight boundaries), and four rotated-grid subsample passes run
-    with NON-edge lanes dead (t_max=0 — near-free in the packet
-    kernels), so only edge pixels pay the 4 extra rays. Edge pixels
+    with NON-edge lanes dead (t_max=0, which traversal skips), so only
+    edge pixels pay the 4 extra rays. Edge pixels
     average the 5 samples; smooth pixels keep the center sample.
     """
     pixel_ids = jnp.arange(width * height, dtype=jnp.int32)
@@ -129,7 +129,7 @@ def _whitted_scan(scene: SceneData, camera: Camera, params: RenderParams,
     def step(state, bounce):
         o, d = state["origin"], state["direction"]
         # dead lanes (masked-out AA subsamples, terminated chains) trace
-        # with t_max=0 — the packet kernels retire them at the root
+        # with t_max=0, which traversal skips
         res = trace(scene.geometry, o, d,
                     jnp.where(state["alive"], INF, 0.0))
         h = hit_attributes(scene.geometry, o, d, res["tri"])

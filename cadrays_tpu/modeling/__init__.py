@@ -10,7 +10,7 @@ capability surface natively with a deliberately different architecture:
   keep exact parameterization for `trim`/`cvalue`/`parameters`;
 * topology (topo.py) is light: faces are planar regions (frame + 2D
   loops), solids are watertight triangle meshes with per-triangle face
-  ids — the TPU render path consumes triangles anyway, so the mesh IS
+  ids — the render path consumes triangles anyway, so the mesh IS
   the boundary representation;
 * booleans (csg.py + native/mesh_csg.cpp) run on a C++ BSP core; 2D
   face booleans reuse it by thin extrusion + cross-section, so there is

@@ -57,13 +57,16 @@ def _load() -> ctypes.CDLL:
             return _lib
         if (not os.path.exists(_LIB)
                 or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+            # build beside the target, then rename (atomic for readers)
+            tmp = f"{_LIB}.{os.getpid()}.tmp"
             cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-                   "-o", _LIB, _SRC]
+                   "-o", tmp, _SRC]
             res = subprocess.run(cmd, capture_output=True, timeout=300)
             if res.returncode != 0:
                 raise RuntimeError(
                     "mesh_csg build failed:\n"
                     + res.stderr.decode(errors="replace")[-2000:])
+            os.replace(tmp, _LIB)
         lib = ctypes.CDLL(_LIB)
         lib.crt_csg.restype = ctypes.c_int64
         P = ctypes.POINTER

@@ -36,10 +36,14 @@ def build(force: bool = False) -> bool:
     if not force and os.path.exists(_LIB) \
             and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
         return True
+    # compile beside the target, then rename: processes that find the
+    # library meanwhile never load a half-written file
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-           "-o", _LIB, _SRC]
+           "-o", tmp, _SRC]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+        os.replace(tmp, _LIB)
         return True
     except (subprocess.CalledProcessError, FileNotFoundError,
             subprocess.TimeoutExpired) as e:

@@ -2,9 +2,9 @@
 //
 // Role parity: the reference's acceleration structures are built in
 // native code inside OCCT (BVH_* templates) [OCCT-contract, SURVEY.md
-// §2.5]; this is the TPU framework's native equivalent. Output layout is
+// §2.5]; this is the framework's native equivalent. Output layout is
 // identical to the Python builder (geometry/bvh.py): DFS preorder nodes
-// with skip links, leaf-contiguous triangle order — ready for HBM upload.
+// with skip links, leaf-contiguous triangle order — ready for upload.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -std=c++17 (see build.py).
 // Binding: plain C ABI consumed via ctypes — no pybind11 dependency.

@@ -1,7 +1,7 @@
 // Mesh boolean operations via BSP solid clipping (csg.js algorithm,
 // re-derived in list form with AABB culling).
 //
-// TPU-native replacement for the reference's OCCT boolean commands
+// Native replacement for the reference's OCCT boolean commands
 // (bcut/bfuse/bcommon/bop — driven by data/scripts/*.tcl). The modeling
 // layer works on watertight triangle meshes with per-triangle face ids,
 // so booleans are mesh-level: build a BSP *classification* tree per

@@ -105,10 +105,9 @@ def hit_attributes(geom: GeometryData, origin, direction, tri):
 # ---------------------------------------------------------------------------
 # Packed single-gather shading path
 # ---------------------------------------------------------------------------
-# Measured on TPU: a dynamic gather costs ~3-4 ms per *op* at wavefront
-# size regardless of row width ((R,) and (R,128) cost the same), so the
-# 15 per-ray gathers above (+15 more in Material.gather) dominate the
-# whole frame. The wavefront integrator instead builds ONE per-triangle
+# The 15 per-ray gathers above (+15 more in Material.gather) would each
+# be one gather op over the wavefront. The wavefront integrator instead
+# builds ONE per-triangle
 # table (triangle geometry + its full material row) once per sample —
 # loop-invariant, so XLA hoists it out of the bounce scan — and shading
 # then needs a single (R, C) row gather per bounce.
@@ -148,10 +147,9 @@ def build_shade_table(geom: GeometryData, materials) -> jnp.ndarray:
 def gather_rows(table, tid):
     """`table[tid]` with a fused segment-sum backward.
 
-    XLA's default VJP for a row gather is a duplicate-index scatter-add
-    (measured 2.56 ms at 262k rows on TPU); `segment_sum` lowers to a
-    sorted segmented reduction instead (1.87 ms). tid is integer
-    topology — no tangent."""
+    XLA's default VJP for a row gather is a duplicate-index scatter-add;
+    this one uses `segment_sum`, a sorted segmented reduction. tid is
+    integer topology — no tangent."""
     return table[tid]
 
 
@@ -200,9 +198,8 @@ def hit_attributes_packed(geom: GeometryData, table, origin, direction, tri):
     from jax.ad_checkpoint import checkpoint_name
 
     # THE gather: one (R, C) row lookup. Saved as a remat residual
-    # ("trace" policy, integrator/wavefront.py) — recomputing it in the
-    # backward costs ~3.1 ms/bounce while the residual write+read is
-    # ~0.15 ms of HBM traffic.
+    # ("trace" policy, integrator/wavefront.py), so the backward reads
+    # it back instead of gathering again.
     rows = checkpoint_name(gather_rows(table, tid), "trace")
     p0 = rows[:, 0:3]
     e1 = rows[:, 3:6]

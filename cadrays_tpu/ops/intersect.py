@@ -1,7 +1,6 @@
 """Ray-primitive intersection math (vectorized, wavefront layout).
 
-Pure jnp functions usable both from XLA traversal loops and inside Pallas
-kernels. All inputs broadcast over leading ray dims.
+Pure jnp functions. All inputs broadcast over leading ray dims.
 """
 from __future__ import annotations
 

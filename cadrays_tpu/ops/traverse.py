@@ -1,18 +1,19 @@
-"""Stackless threaded-BVH traversal over a ray wavefront.
+"""Stackless threaded-BVH traversal of a ray wavefront.
 
-One `lax.while_loop` executes the skip-link walk for every ray in
-lockstep (see geometry/bvh.py for the layout rationale). Divergence costs
-idle iterations on finished lanes but never touches dynamic shapes, so the
-whole thing jits once per scene. Hit topology (triangle ids) is integer
-output — naturally non-differentiable; differentiable hit attributes are
-recomputed from the ids in ops/hit.py, which is where gradients flow.
+Two implementations walk the same skip-link tree (see geometry/bvh.py for
+the layout) over the same packed tables (GeometryData.nodes_packed (N, 8):
+box + skip + leaf bits in one row; tris_packed (T, 12): p0/e1/e2 — see
+scene/flatten.py), in the same order, with the same tie-breaks:
 
-HBM layout: the loop reads the *packed* tables (GeometryData.nodes_packed
-(N,8): box + skip + leaf bits in one row; tris_packed (T,12): p0/e1/e2 —
-see scene/flatten.py), so each iteration performs exactly one node-row
-gather plus up-to-MAX_LEAF triangle-row gathers — the minimum possible
-HBM traffic for an incoherent wavefront. A Pallas VMEM-resident variant
-lives in ops/pallas_traverse.py for scenes that fit on-chip.
+* `trace_gather`: plain JAX. One `lax.while_loop` steps every ray in
+  lockstep, one node-row gather plus up to MAX_LEAF triangle-row gathers
+  per step. It is the reference and the CPU path.
+* `ops.traverse_cuda.trace_cuda`: the GPU path, a CUDA kernel that runs
+  one thread per ray and lets each thread exit when its ray is done.
+
+Hit topology (triangle ids) is integer output — naturally
+non-differentiable; differentiable hit attributes are recomputed from the
+ids in ops/hit.py, which is where gradients flow.
 """
 from __future__ import annotations
 
@@ -32,9 +33,7 @@ _EPS = 1e-7
 # grazing box test, losing a closer hit one walker finds. Shrinking
 # t_near / growing t_far by ~4 ulp makes every walker a conservative
 # superset of the exact test — a few false-positive leaf tests, never a
-# lost hit. (The 1/512 closer-hit miss that motivated this turned out
-# to be XLA downcasting batched transform einsums to reduced precision,
-# now pinned to f32 everywhere; the widening stays as cheap insurance.)
+# lost hit. The CUDA kernel applies the same widening.
 _BOX_SHRINK = 1.0 - 4e-7
 _BOX_GROW = 1.0 + 4e-7
 _LEAF_MASK = (1 << 24) - 1
@@ -63,34 +62,16 @@ def _tri_intersect_packed(origin, direction, trow):
     return jnp.where(hit, t, INF), u, v, hit
 
 
-_BACKEND = None  # lazy: "stream" on TPU, "gather" elsewhere
+def tracer_for(platform: str):
+    """The traversal for a JAX platform: the CUDA kernel on "gpu", the
+    gather walk on "cpu". Any other platform has none and raises."""
+    if platform == "gpu":
+        from cadrays_tpu.ops.traverse_cuda import trace_cuda
 
-
-_BACKENDS = ("bruteforce", "wide", "pallas", "stream", "gather")
-
-
-def get_backend() -> str:
-    global _BACKEND
-    if _BACKEND is None:
-        import os
-
-        env = os.environ.get("CADRAYS_TRAVERSAL", "")
-        if env in _BACKENDS:
-            _BACKEND = env
-        else:
-            # wide (BVH8) is the fast path on TPU; it falls through to the
-            # binary pallas kernel / stream loop when no wide tree fits.
-            _BACKEND = "wide" if jax.default_backend() == "tpu" else "gather"
-    return _BACKEND
-
-
-def set_backend(name: str) -> None:
-    """Select the traversal implementation: 'bruteforce' (MXU matmul
-    intersection, TPU, small scenes), 'pallas' (VMEM BVH kernel, TPU),
-    'stream' (packet XLA) or 'gather' (per-ray, CPU)."""
-    global _BACKEND
-    assert name in _BACKENDS, name
-    _BACKEND = name
+        return trace_cuda
+    if platform == "cpu":
+        return trace_gather
+    raise NotImplementedError(f"no ray traversal for platform {platform!r}")
 
 
 def trace(geom: GeometryData, origin, direction, t_max,
@@ -102,75 +83,17 @@ def trace(geom: GeometryData, origin, direction, t_max,
     With any_hit=True, lanes stop at the first hit (occlusion query) —
     `tri >= 0` then means "occluded", t/u/v are that first hit's.
 
-    Dispatch: the Pallas VMEM kernel when the scene fits on-chip (TPU),
-    else the packet/stream XLA loop (TPU), else the per-ray gather walk
-    (CPU). All three return identical hits.
+    Dispatch is by JAX's default platform (`tracer_for`): the per-ray
+    CUDA kernel on a GPU, `trace_gather` on the CPU. Both walk the same
+    tree in the same order and return the same hits.
     """
     # Traversal is intentionally non-differentiable (detached topology;
     # ops/hit.py recomputes continuous quantities). Detaching the inputs
-    # keeps autodiff out of the kernels entirely — required for the
-    # Pallas path (no VJP rule) and a no-op for the others.
+    # keeps autodiff out of the kernel entirely (it has no JVP rule).
     sg = jax.lax.stop_gradient
     geom_, origin_, direction_, t_max_ = sg((geom, origin, direction, t_max))
-    backend = get_backend()
-    if backend == "bruteforce":
-        from cadrays_tpu.ops.mxu_intersect import (fits_bruteforce,
-                                                   trace_bruteforce)
-
-        if fits_bruteforce(geom):
-            return trace_bruteforce(geom_, origin_, direction_, t_max_,
-                                    any_hit=any_hit)
-        backend = "wide"
-    if backend == "wide":
-        from cadrays_tpu.ops.pallas_wide import (fits_wide, fits_wide_hbm,
-                                                 trace_wide)
-
-        if fits_wide(geom):
-            return trace_wide(geom_, origin_, direction_, t_max_,
-                              any_hit=any_hit)
-        if fits_wide_hbm(geom):
-            # CAD scale: triangles streamed from HBM per merged leaf
-            return trace_wide(geom_, origin_, direction_, t_max_,
-                              any_hit=any_hit, hbm_tris=True)
-        backend = "pallas"
-    if backend == "pallas":
-        from cadrays_tpu.ops.pallas_traverse import fits_vmem, trace_pallas
-
-        if fits_vmem(geom):
-            return trace_pallas(geom_, origin_, direction_, t_max_,
-                                any_hit=any_hit)
-        backend = "stream"
-    if backend == "stream":
-        return trace_stream(geom_, origin_, direction_, t_max_,
-                            any_hit=any_hit)
-    return trace_gather(geom_, origin_, direction_, t_max_, any_hit=any_hit)
-
-
-def trace_sorted(geom: GeometryData, origin, direction, t_max,
-                 any_hit: bool = False):
-    """`trace` with ray reordering for coherence.
-
-    Packet traversal (stream and Pallas alike) is fastest when the rays
-    inside a block agree on a path through the tree. Bounce rays arrive
-    shuffled; sorting by (direction octant, quantized origin) restores
-    most of the primary-ray coherence for ~1 sort of cost. Results are
-    scattered back to the caller's ray order.
-
-    The brute-force MXU backend is coherence-insensitive — sorting is
-    pure overhead there, so it is skipped.
-    """
-    if get_backend() == "bruteforce":
-        from cadrays_tpu.ops.mxu_intersect import fits_bruteforce
-
-        if fits_bruteforce(geom):
-            return trace(geom, origin, direction, t_max, any_hit=any_hit)
-    key = _coherence_key(geom, origin, direction)
-    perm = jnp.argsort(key)
-    res = trace(geom, origin[perm], direction[perm],
-                jnp.broadcast_to(t_max, (origin.shape[0],))[perm],
-                any_hit=any_hit)
-    inv = jnp.argsort(perm)
-    return {k: v[inv] for k, v in res.items()}
+    return tracer_for(jax.default_backend())(geom_, origin_, direction_,
+                                             t_max_, any_hit=any_hit)
 
 
 def _coherence_key(geom: GeometryData, origin, direction):
@@ -284,138 +207,3 @@ def occluded(geom: GeometryData, origin, direction, t_max):
     """Boolean shadow query along (origin, direction) up to t_max."""
     res = trace(geom, origin, direction, t_max, any_hit=True)
     return res["tri"] >= 0
-
-
-# ===========================================================================
-# Stream (packet) traversal — the TPU-native fast path
-# ===========================================================================
-#
-# TPU rationale: per-ray divergent traversal needs a gather per ray per
-# step, and TPU has no hardware vector gather (XLA emulates them at
-# catastrophic cost; Pallas rejects them outright — "Cannot do int
-# indexing on TPU"). So instead of each ray walking its own path, a BLOCK
-# of rays walks the threaded BVH *together*:
-#
-#   * one node pointer per block (shape (nb,), nb = R/B blocks) — the only
-#     "gather" is nb node rows per step, thousands of times smaller than R;
-#   * every ray in the block slab-tests the streamed node as a dense
-#     (nb, B) VPU op; the block descends if ANY live ray hits the box;
-#   * leaves stream their <=MAX_LEAF triangles the same way.
-#
-# Cost model: per step, all R rays do ~110 flops of pure vector math;
-# steps = max over blocks of nodes visited by the block's ray union.
-# Coherent blocks (primary rays in scanline order, shadow rays to a
-# light) visit near-minimal node sets; incoherent bounce rays degrade
-# gracefully toward O(N) — still pure VPU, never gather-bound. This is
-# the classic packet-stream traversal re-derived from TPU constraints.
-
-
-@partial(jax.jit, static_argnames=("any_hit", "block"))
-def trace_stream(geom: GeometryData, origin, direction, t_max,
-                 any_hit: bool = False, block: int = 512):
-    """Packet traversal. Same contract as `trace`.
-
-    Rays are processed in blocks of `block` consecutive lanes; callers
-    should keep consecutive rays coherent (scanline pixels already are).
-    """
-    R = origin.shape[0]
-    B = block
-    nb = -(-R // B)
-    pad = nb * B - R
-
-    def pad0(x, fill=0.0):
-        return jnp.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1),
-                       constant_values=fill)
-
-    o = pad0(origin).reshape(nb, B, 3)
-    d = pad0(direction).reshape(nb, B, 3)
-    tm = pad0(jnp.broadcast_to(t_max, (R,))).reshape(nb, B)
-    inv_d = safe_inv_dir(d)
-
-    nodes = geom.nodes_packed
-    tris = geom.tris_packed
-
-    state = dict(
-        node=jnp.zeros(nb, jnp.int32),
-        t=jnp.minimum(tm, INF),
-        tri=jnp.full((nb, B), -1, jnp.int32),
-        u=jnp.zeros((nb, B), jnp.float32),
-        v=jnp.zeros((nb, B), jnp.float32),
-    )
-    lane_live = tm > 0.0  # padded lanes (and 0-length shadow rays) are dead
-
-    def cond(s):
-        return jnp.any(s["node"] >= 0)
-
-    def body(s):
-        node = jnp.maximum(s["node"], 0)
-        blk_alive = s["node"] >= 0
-
-        row = nodes[node]  # (nb, 8) — tiny gather
-        bmin = row[:, None, 0:3]
-        bmax = row[:, None, 3:6]
-        skip = jax.lax.bitcast_convert_type(row[:, 6], jnp.int32)
-        leafbits = jax.lax.bitcast_convert_type(row[:, 7], jnp.int32)
-        is_leaf = leafbits >= 0
-        first = leafbits & _LEAF_MASK
-        count = jnp.where(is_leaf, leafbits >> 24, 0)
-        descend_to = -leafbits - 2
-
-        if geom.instanced:
-            inst = geom.node_inst[node]  # (nb,)
-            inv = geom.inst_inv[jnp.maximum(inst, 0)]  # (nb, 3, 4)
-            world = (inst < 0)[:, None, None]
-            o_l = jnp.where(
-                world, o,
-                jnp.einsum("nij,nbj->nbi", inv[:, :, :3], o, precision="float32")
-                + inv[:, None, :, 3])
-            d_l = jnp.where(
-                world, d, jnp.einsum("nij,nbj->nbi", inv[:, :, :3], d, precision="float32"))
-            inv_d_l = safe_inv_dir(d_l)
-        else:
-            o_l, d_l, inv_d_l = o, d, inv_d
-
-        if any_hit:
-            ray_open = lane_live & (s["tri"] < 0)
-        else:
-            ray_open = lane_live
-
-        # dense slab test: every ray in every block vs its block's node
-        t0 = (bmin - o_l) * inv_d_l
-        t1 = (bmax - o_l) * inv_d_l
-        t_near = jnp.max(jnp.minimum(t0, t1), axis=-1) * _BOX_SHRINK
-        t_far = jnp.min(jnp.maximum(t0, t1), axis=-1) * _BOX_GROW
-        ray_hit_box = (jnp.maximum(t_near, 0.0)
-                       <= jnp.minimum(t_far, s["t"])) & ray_open
-        blk_hit = jnp.any(ray_hit_box, axis=-1) & blk_alive
-
-        at_leaf = blk_hit & is_leaf
-        t_best, tri_best = s["t"], s["tri"]
-        u_best, v_best = s["u"], s["v"]
-        for k in range(MAX_LEAF):
-            tid = jnp.where(at_leaf & (k < count), first + k, 0)
-            trow = tris[tid]  # (nb, 12) — tiny gather
-            t, u, v, hit = _tri_intersect_packed(o_l, d_l, trow[:, None, :])
-            live = (at_leaf & (k < count))[:, None] & ray_hit_box
-            better = live & hit & (t < t_best)
-            t_best = jnp.where(better, t, t_best)
-            tri_best = jnp.where(better, tid[:, None], tri_best)
-            u_best = jnp.where(better, u, u_best)
-            v_best = jnp.where(better, v, v_best)
-
-        go_down = blk_hit & (~is_leaf)
-        nxt = jnp.where(go_down, descend_to, skip)
-        nxt = jnp.where(blk_alive, nxt, -1)
-        if any_hit:
-            all_done = ~jnp.any((tri_best < 0) & lane_live, axis=-1)
-            nxt = jnp.where(all_done, -1, nxt)
-
-        return dict(node=nxt, t=t_best, tri=tri_best, u=u_best, v=v_best)
-
-    out = jax.lax.while_loop(cond, body, state)
-
-    def unpad(x):
-        return x.reshape(nb * B, *x.shape[2:])[:R]
-
-    return {"t": unpad(out["t"]), "tri": unpad(out["tri"]),
-            "u": unpad(out["u"]), "v": unpad(out["v"])}

@@ -1,7 +1,7 @@
 """Elastic rendering: coordinator init with retry + checkpointed resume.
 
 The reference is a desktop tool with no failure story beyond
-name-collision repair (SURVEY.md §5); a multi-host TPU renderer needs
+name-collision repair (SURVEY.md §5); a multi-host renderer needs
 one. The standard JAX recipe is implemented here:
 
 * `init_distributed` wraps `jax.distributed.initialize` with bounded

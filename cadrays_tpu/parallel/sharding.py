@@ -1,15 +1,15 @@
 """Multi-chip scaling: rays/tiles sharded over a device mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2.5 "Parallelism"); this
-subsystem is new TPU-native design per SURVEY.md §7.1 step 6:
+subsystem is new design per SURVEY.md §7.1 step 6:
 
 * one mesh axis ("rays") shards the pixel/ray wavefront;
 * the scene (BVH, triangles, materials, textures, env CDFs) is
-  *replicated* into every chip's HBM — path tracing reads it randomly,
-  so replication beats sharded gathers over ICI by orders of magnitude;
+  *replicated* into every device's memory — path tracing reads it
+  randomly, so replication beats gathers across devices;
 * forward rendering needs **zero** collectives (pixel-disjoint work);
 * the differentiable path all-reduces parameter gradients with `psum`
-  over ICI inside the same jitted step, so XLA overlaps the collective
+  across devices inside the same jitted step, so XLA overlaps the collective
   with the backward sweep;
 * multi-host: initialize `jax.distributed`, build the mesh over all
   devices; data loading happens host-side and is broadcast by GSPMD.
@@ -92,7 +92,7 @@ def render_persistent_sharded(scene: SceneData, camera: Camera,
     for zero estimator benefit; lane order is pure optimization).
     Forward needs no collectives; under `jax.grad` the replicated scene
     (in_spec P()) makes shard_map's transpose psum parameter gradients
-    over ICI automatically.
+    across devices automatically.
 
     Returns (sum_img (padded, 3), cnt (padded,)) in pixel order —
     callers slice [:width*height] and divide; per-lane radiance is
@@ -127,7 +127,7 @@ def render_persistent_sharded_jit(scene: SceneData, camera: Camera,
 
 
 def scene_replicated(scene: SceneData, mesh: Mesh) -> SceneData:
-    """Place every scene leaf replicated on the mesh (explicit HBM copy)."""
+    """Place every scene leaf replicated on the mesh (one copy per device)."""
     sharding = NamedSharding(mesh, P())
     return jax.device_put(scene, sharding)
 

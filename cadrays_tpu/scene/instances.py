@@ -85,9 +85,8 @@ def build_instanced(
     if n_inst == 0:
         raise ValueError("cannot flatten an empty scene")
 
-    # BLAS per UNIQUE mesh object (assemblies repeat parts; building the
-    # SAH tree once per distinct mesh also feeds the shared-BLAS wide
-    # structure below)
+    # BLAS per UNIQUE mesh object (assemblies repeat parts; the SAH tree
+    # is built once per distinct mesh)
     _blas_cache: dict = {}
 
     def _blas_of(m):
@@ -201,8 +200,7 @@ def build_instanced(
                         -descend - 2).astype(np.int32)
     nodes_packed[:, 7] = leafbits.view(np.float32)
 
-    # 128 spare zero rows (HBM-streamed wide kernel window overrun pad)
-    tris_packed = np.zeros((max(T, 1) + 128, 12), np.float32)
+    tris_packed = np.zeros((max(T, 1), 12), np.float32)
     p0 = vertices[tri_v[:, 0]]
     p1 = vertices[tri_v[:, 1]]
     p2 = vertices[tri_v[:, 2]]
@@ -217,76 +215,6 @@ def build_instanced(
         m = np.asarray(tf, np.float64)
         inst_inv[i] = np.linalg.inv(m)[:3, :4].astype(np.float32)
         inst_tf[i] = m[:3, :4].astype(np.float32)
-
-    from cadrays_tpu.geometry.wide_bvh import build_wide_bvh
-    from cadrays_tpu.scene.flatten import _HBM_TRIS_THRESHOLD, build_tris_hbm
-
-    # ---- shared-BLAS wide structure (round 4) --------------------------
-    # Group instances by (mesh identity, material): each group's BLAS
-    # appears ONCE in the wide tree (build_wide_bvh memoizes the shared
-    # subtree; the bridge slot carries the instance id). Leaf triangle
-    # ranges index a COMPACT per-group table — often 10-100x smaller than
-    # the fused one and VMEM-resident at assembly scale — and the kernel
-    # adds wdelta[inst] to hits to recover fused per-instance ids.
-    group_key = [(id(meshes[i]), int(mat_ids[i])) for i in range(n_inst)]
-    group_of: dict = {}
-    group_rep: list = []
-    for i in range(n_inst):
-        if group_key[i] not in group_of:
-            group_of[group_key[i]] = len(group_rep)
-            group_rep.append(i)
-    group_idx = [group_of[group_key[i]] for i in range(n_inst)]
-    G = len(group_rep)
-
-    g_nodes = [blas_sizes[group_rep[g]] for g in range(G)]
-    g_tris = [tri_counts[group_rep[g]] for g in range(G)]
-    g_node_off = np.concatenate([[Nt], Nt + np.cumsum(g_nodes)])[:G]
-    g_tri_off = np.concatenate([[0], np.cumsum(g_tris)])[:G]
-    Tw = int(sum(g_tris))
-    Nw = Nt + int(sum(g_nodes))
-
-    w_min = np.zeros((Nw, 3), np.float32)
-    w_max = np.zeros((Nw, 3), np.float32)
-    w_skip = np.full(Nw, -1, np.int32)
-    w_desc = np.arange(1, Nw + 1, dtype=np.int64)
-    w_first = np.full(Nw, -1, np.int32)
-    w_count = np.zeros(Nw, np.int32)
-    w_inst = np.full(Nw, -1, np.int32)
-
-    w_min[:Nt] = tlas.node_min
-    w_max[:Nt] = tlas.node_max
-    w_skip[:Nt] = tlas.skip
-    for ln in leaf_ids:
-        inst = int(tlas.order[tlas.first[ln]])
-        w_desc[ln] = g_node_off[group_idx[inst]]
-        w_inst[ln] = inst  # the bridge carries the instance id
-    for g in range(G):
-        bvh = blases[group_rep[g]][0]
-        o = int(g_node_off[g])
-        n = g_nodes[g]
-        w_min[o:o + n] = bvh.node_min
-        w_max[o:o + n] = bvh.node_max
-        w_skip[o:o + n] = np.where(bvh.skip >= 0, bvh.skip + o, -1)
-        leaf = bvh.count > 0
-        w_first[o:o + n] = np.where(leaf, bvh.first + g_tri_off[g], -1)
-        w_count[o:o + n] = bvh.count
-
-    bridge_mask = np.zeros(Nw, bool)
-    bridge_mask[leaf_ids] = True  # TLAS leaves became bridges
-    wl = 64
-    wide = build_wide_bvh(w_min, w_max, w_skip, w_first, w_count,
-                          descend=w_desc, node_inst=w_inst,
-                          bridge=bridge_mask, wide_leaf=wl)
-
-    wtris_packed = np.zeros((Tw + 128, 12), np.float32)
-    for g in range(G):
-        rep = group_rep[g]
-        src = tri_off[rep]
-        wtris_packed[g_tri_off[g]:g_tri_off[g] + g_tris[g]] = \
-            tris_packed[src:src + g_tris[g]]
-    wdelta = np.asarray(
-        [tri_off[i] - g_tri_off[group_idx[i]] for i in range(n_inst)],
-        np.int32)
 
     geom = GeometryData(
         vertices=jnp.asarray(vertices),
@@ -306,20 +234,6 @@ def build_instanced(
         inst_inv=jnp.asarray(inst_inv),
         inst_tf=jnp.asarray(inst_tf),
         instanced=True,
-        wboxes=jnp.asarray(wide.wboxes),
-        wmeta=jnp.asarray(wide.wmeta),
-        winst=jnp.asarray(wide.winst),
-        worder=jnp.asarray(wide.worder),
-        wide_leaf=wide.max_leaf,
-        wide_depth=wide.max_depth,
-        wtris_packed=jnp.asarray(wtris_packed),
-        wtris_hbm=(build_tris_hbm(wtris_packed)
-                   if wtris_packed.shape[0] > _HBM_TRIS_THRESHOLD
-                   else jnp.zeros((1, 128), jnp.float32)),
-        wdelta=jnp.asarray(wdelta),
-        inst_lo=jnp.asarray(inst_lo),
-        inst_hi=jnp.asarray(inst_hi),
-        inst_bridge=jnp.asarray(_bridge_metas(wide, n_inst)),
     )
 
     mat_table = concat_materials(list(materials))
@@ -333,20 +247,6 @@ def build_instanced(
         emissive=emissive,
         textures=textures if textures is not None else _empty_textures(),
     )
-
-
-def _bridge_metas(wide, n_inst: int) -> np.ndarray:
-    """Per-instance wide-tree entry: the (meta) slot value the TLAS
-    pushes when a packet enters instance i — each TLAS leaf holds one
-    instance, so every instance appears in exactly one (node, slot) of
-    `winst` (shared-BLAS groups repeat the same meta, which is fine).
-    Consumed by the per-ray candidate traversal (trace_wide_rebinned)."""
-    out = np.full(n_inst, 0x7FFFFFFF, np.int32)
-    wi = np.asarray(wide.winst)
-    wm = np.asarray(wide.wmeta)
-    sel = wi >= 0
-    out[wi[sel]] = wm[sel]
-    return out
 
 
 def _build_tlas(lo: np.ndarray, hi: np.ndarray) -> ThreadedBVH:

@@ -2,8 +2,8 @@
 
 The reference's only instrumentation is an FPS readout in the window
 title and a batch-mode average (AppViewer.cxx:1248-1250, 1059-1075;
-SURVEY.md §5 "tracing/profiling: minimal"). For a TPU production
-framework this is first-class instead:
+SURVEY.md §5 "tracing/profiling: minimal"). Here it is first-class
+instead:
 
 * `RayCounter` — analytic ray-query accounting for a render config (the
   integrator's issue pattern is static, so counts are exact, not

@@ -175,35 +175,6 @@ class TestBVH:
         np.testing.assert_array_equal(bn.skip, bp.skip)
         np.testing.assert_allclose(bn.node_min, bp.node_min, atol=1e-6)
 
-    @pytest.mark.parametrize("any_hit", [False, True])
-    def test_stream_matches_gather(self, any_hit):
-        """The packet/stream TPU path and the per-ray gather path must
-        produce identical hits (same DFS visit order, same tie-breaks)."""
-        from cadrays_tpu.ops.traverse import trace_gather, trace_stream
-
-        mesh = TriangleMesh.merge([
-            primitives.sphere(1.0, 24, 12),
-            primitives.box(3, 3, 0.2, origin_corner=False)
-            .transformed(np.diag([1, 1, 1, 1]).astype(np.float32)),
-        ])
-        geom = _geom_from_mesh(mesh)
-        rs = np.random.RandomState(5)
-        R = 700  # not a multiple of the stream block — exercises padding
-        origins = np.float32([0, 0, 5]) + 0.5 * rs.randn(R, 3).astype(np.float32)
-        dirs = np.float32([0, 0, -1]) + 0.7 * rs.randn(R, 3).astype(np.float32)
-        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-        tmax = jnp.full(R, INF)
-        a = trace_gather(geom, jnp.asarray(origins), jnp.asarray(dirs), tmax,
-                         any_hit=any_hit)
-        b = trace_stream(geom, jnp.asarray(origins), jnp.asarray(dirs), tmax,
-                         any_hit=any_hit)
-        if any_hit:
-            np.testing.assert_array_equal(np.asarray(a["tri"]) >= 0,
-                                          np.asarray(b["tri"]) >= 0)
-        else:
-            np.testing.assert_array_equal(a["tri"], b["tri"])
-            np.testing.assert_allclose(a["t"], b["t"], rtol=1e-6)
-
     def test_occlusion(self):
         mesh = primitives.box(1, 1, 1, origin_corner=False)
         geom = _geom_from_mesh(mesh)
@@ -244,54 +215,3 @@ class TestBVH:
         # from inside the sphere every ray hits at t ~= 1
         assert bool(jnp.all(res["tri"] >= 0))
         np.testing.assert_allclose(np.asarray(res["t"]), 1.0, atol=5e-3)
-
-
-class TestBruteforceMXU:
-    @pytest.mark.parametrize("any_hit", [False, True])
-    def test_matches_gather(self, any_hit):
-        """The MXU matmul intersector must agree with the reference
-        gather walk on hit ids (closest) / occlusion (any-hit)."""
-        from cadrays_tpu.ops.mxu_intersect import trace_bruteforce
-        from cadrays_tpu.ops.traverse import trace_gather
-
-        mesh = TriangleMesh.merge([
-            primitives.sphere(1.0, 24, 12),
-            primitives.box(3, 3, 0.2, origin_corner=False),
-        ])
-        geom = _geom_from_mesh(mesh)
-        rs = np.random.RandomState(11)
-        R = 700  # not a multiple of RAY_TILE — exercises padding
-        origins = np.float32([0, 0, 5]) + 0.5 * rs.randn(R, 3).astype(np.float32)
-        dirs = np.float32([0, 0, -1]) + 0.7 * rs.randn(R, 3).astype(np.float32)
-        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-        tmax = jnp.full(R, INF)
-        a = trace_gather(geom, jnp.asarray(origins), jnp.asarray(dirs), tmax,
-                         any_hit=any_hit)
-        b = trace_bruteforce(geom, jnp.asarray(origins), jnp.asarray(dirs),
-                             tmax, any_hit=any_hit)
-        if any_hit:
-            np.testing.assert_array_equal(np.asarray(a["tri"]) >= 0,
-                                          np.asarray(b["tri"]) >= 0)
-        else:
-            am = np.asarray(a["tri"]) >= 0
-            bm = np.asarray(b["tri"]) >= 0
-            np.testing.assert_array_equal(am, bm)
-            # ids may differ only where two triangles share the hit point
-            # (mesh seams); t must agree everywhere
-            np.testing.assert_allclose(np.asarray(a["t"])[am],
-                                       np.asarray(b["t"])[bm], rtol=1e-4)
-            same = np.asarray(a["tri"]) == np.asarray(b["tri"])
-            assert same[am].mean() > 0.99
-
-    def test_finite_tmax_clips(self):
-        from cadrays_tpu.ops.mxu_intersect import trace_bruteforce
-
-        mesh = primitives.box(1, 1, 1, origin_corner=False)
-        geom = _geom_from_mesh(mesh)
-        o = jnp.asarray([[0.0, 0.0, 5.0]])
-        d = jnp.asarray([[0.0, 0.0, -1.0]])
-        hit = trace_bruteforce(geom, o, d, jnp.full(1, INF))
-        assert int(hit["tri"][0]) >= 0
-        # tmax shorter than the hit distance -> miss
-        miss = trace_bruteforce(geom, o, d, jnp.full(1, 2.0))
-        assert int(miss["tri"][0]) == -1

@@ -1,21 +1,19 @@
-"""256x256 golden gate (round-4, VERDICT weak #4).
+"""256x256 golden gate.
 
-The 64x64 goldens can hide DoF bokeh shape, texture filtering,
-wide-BVH ordering and env-CDF regressions inside their 2% pixel budget;
-these 256x256 goldens cover three feature axes the small set does not
-pin down: the full Cornell at 4x resolution, an instanced-TLAS scene
-(two-level traversal + shared-BLAS triangle-id mapping), and an
-environment-map scene (marginal/conditional CDF importance sampling +
-background). Deterministic counter-based RNG keeps the gate tight.
+The 64x64 goldens can hide DoF bokeh shape, texture filtering, BVH
+ordering and env-CDF regressions inside their 2% pixel budget; these
+256x256 goldens cover three feature axes the small set does not pin
+down: the full Cornell at 4x resolution, an instanced-TLAS scene
+(two-level traversal), and an environment-map scene (marginal/
+conditional CDF importance sampling + background). Deterministic
+counter-based RNG keeps the gate tight.
 
 Update with:  CADRAYS_GOLDEN_UPDATE=1 python -m pytest
               tests/test_golden_hires.py -q
 
-Cross-backend check (round 4, run manually on the chip): rendering
-these scenes on the TPU wide-BVH kernel against the CPU-recorded
-goldens measured 0.000% bad pixels (instanced + envmap) and 0.137%
-(cornell, glass-caustic f32 ordering) — the Mosaic kernel, shared-BLAS
-wdelta remap and t-cull reproduce the reference walk per pixel.
+The goldens were recorded on the CPU. `chip_smoke.py` (phase 6) renders
+the same scenes on the GPU, through the CUDA traversal kernel, and holds
+them to the same `compare` budget.
 """
 import os
 
@@ -26,6 +24,10 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 DATA = os.path.join(os.path.dirname(__file__), "data")
 RES = 256
 SPP = 8
+# a pixel is bad when any channel is off by more than PIXEL_TOL; a scene
+# passes while fewer than BAD_PIXEL_BUDGET of its pixels are bad
+PIXEL_TOL = 0.02
+BAD_PIXEL_BUDGET = 0.005
 
 
 def _render(data, cam, params):
@@ -110,35 +112,53 @@ def _scene_envmap():
     return scene.flatten(cam), cam, RenderParams(ray_depth=4)
 
 
-_SCENES = {
+SCENES = {
     "hires_cornell": _scene_cornell,
     "hires_instanced": _scene_instanced,
     "hires_envmap": _scene_envmap,
 }
 
 
-# `hires_<name>.npz` was recorded with the fixed-depth wavefront (and
-# cross-backend validated on the chip, see module docstring); the
-# round-5 persistent default gets its own `hires_<name>_persistent.npz`
-# set — the two estimators are statistically, not bitwise, equal.
-@pytest.mark.slow
-@pytest.mark.parametrize("variant", ["fixed", "persistent"])
-@pytest.mark.parametrize("name", sorted(_SCENES))
-def test_golden_hires(name, variant):
-    data, cam, params = _SCENES[name]()
+VARIANTS = ("fixed", "persistent")
+
+
+def render_scene(name: str, variant: str) -> np.ndarray:
+    """Render golden scene `name` with the fixed-depth or the persistent
+    wavefront."""
+    data, cam, params = SCENES[name]()
     params = params.replace(persistent=(variant == "persistent"))
-    img = _render(data, cam, params)
-    assert np.isfinite(img).all()
+    return _render(data, cam, params)
+
+
+def golden_path(name: str, variant: str) -> str:
+    # `hires_<name>.npz` holds the fixed-depth wavefront's image and
+    # `hires_<name>_persistent.npz` the persistent one's: the two
+    # estimators are statistically, not bitwise, equal.
     suffix = "_persistent" if variant == "persistent" else ""
-    path = os.path.join(GOLDEN, f"{name}{suffix}.npz")
+    return os.path.join(GOLDEN, f"{name}{suffix}.npz")
+
+
+def compare(img: np.ndarray, golden: np.ndarray) -> dict:
+    """Bad-pixel share and error statistics of `img` against `golden`."""
+    err = np.abs(img - golden)
+    bad = np.any(err > PIXEL_TOL, axis=-1)
+    return {"bad": float(bad.mean()), "mean_err": float(err.mean()),
+            "max_err": float(err.max())}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_golden_hires(name, variant):
+    img = render_scene(name, variant)
+    assert np.isfinite(img).all()
+    path = golden_path(name, variant)
     if os.environ.get("CADRAYS_GOLDEN_UPDATE") or not os.path.exists(path):
         np.savez_compressed(path, image=img.astype(np.float16))
         if not os.environ.get("CADRAYS_GOLDEN_UPDATE"):
             pytest.skip(f"golden for {name} created; rerun to gate")
         return
-    golden = np.load(path)["image"].astype(np.float32)
-    err = np.abs(img - golden)
-    bad = np.any(err > 0.02, axis=-1)
-    assert bad.mean() < 0.005, (
-        f"{name}: {bad.mean() * 100:.2f}% pixels off "
-        f"(mean {err.mean():.4f}, max {err.max():.3f})")
+    c = compare(img, np.load(path)["image"].astype(np.float32))
+    assert c["bad"] < BAD_PIXEL_BUDGET, (
+        f"{name}: {c['bad'] * 100:.2f}% pixels off "
+        f"(mean {c['mean_err']:.4f}, max {c['max_err']:.3f})")

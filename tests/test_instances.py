@@ -5,7 +5,7 @@ import pytest
 
 from cadrays_tpu.integrator.params import RenderParams
 from cadrays_tpu.integrator.renderer import render_image
-from cadrays_tpu.ops.traverse import trace_gather, trace_stream
+from cadrays_tpu.ops.traverse import trace_gather
 from cadrays_tpu.testing.scenes import cornell_box, cornell_camera
 
 RES = 24
@@ -34,16 +34,15 @@ class TestInstancedTraversal:
         d = np.float32([0, 1, 0]) + 0.5 * rs.randn(R, 3).astype(np.float32)
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         tmax = jnp.full(R, 1e30)
-        for tracer in (trace_gather, trace_stream):
-            a = tracer(baked.geometry, jnp.asarray(o), jnp.asarray(d), tmax)
-            b = tracer(inst.geometry, jnp.asarray(o), jnp.asarray(d), tmax)
-            # triangle ids are permuted between builds; compare hit masks
-            # and distances
-            np.testing.assert_array_equal(np.asarray(a["tri"]) >= 0,
-                                          np.asarray(b["tri"]) >= 0)
-            np.testing.assert_allclose(np.asarray(a["t"]),
-                                       np.asarray(b["t"]), rtol=2e-4,
-                                       atol=2e-4)
+        a = trace_gather(baked.geometry, jnp.asarray(o), jnp.asarray(d), tmax)
+        b = trace_gather(inst.geometry, jnp.asarray(o), jnp.asarray(d), tmax)
+        # triangle ids are permuted between builds; compare hit masks
+        # and distances
+        np.testing.assert_array_equal(np.asarray(a["tri"]) >= 0,
+                                      np.asarray(b["tri"]) >= 0)
+        np.testing.assert_allclose(np.asarray(a["t"]),
+                                   np.asarray(b["t"]), rtol=2e-4,
+                                   atol=2e-4)
 
     def test_render_matches_baked(self, both_scenes):
         """Full GI render through the instanced path matches the baked
@@ -99,62 +98,3 @@ class TestInstancedTraversal:
         params = RenderParams(ray_depth=3)
         img = np.asarray(render_image(di, cam, params, 32, 32, 16))
         assert img[16, 24:30].mean() > 0.05  # floor lit through instancing
-
-
-def test_shared_blas_wide_kernel_matches_reference_backend():
-    """Round-4 shared-BLAS dedup: the wide kernel reads the COMPACT
-    per-group triangle table and adds wdelta[inst] to recover fused
-    triangle ids — interpret-mode hits must match the per-ray gather
-    walk exactly (ids, t, uv), including instances of the same mesh
-    with different materials (separate groups)."""
-    import jax
-    import numpy as np
-    import jax.numpy as jnp
-
-    from cadrays_tpu.core.bsdf import material
-    from cadrays_tpu.geometry.primitives import sphere, torus
-    from cadrays_tpu.ops.pallas_wide import fits_wide, trace_wide
-    from cadrays_tpu.ops.traverse import trace_gather
-    from cadrays_tpu.scene.instances import build_instanced
-
-    tor = torus(0.6, 0.25, 16, 8)
-    sph = sphere(0.5, 12, 6)
-    meshes, tfs, mids = [], [], []
-    rng = np.random.default_rng(5)
-    for i in range(3):
-        for j in range(3):
-            m = np.eye(4, dtype=np.float32)
-            m[:3, 3] = (i * 1.5, j * 1.5, 0.0)
-            # mix: two tori groups (different materials) + spheres
-            meshes.append(tor if (i + j) % 3 else sph)
-            tfs.append(m)
-            mids.append((i + j) % 2)
-    data = build_instanced(meshes, tfs,
-                           [material(kd=(0.8, 0.2, 0.2)),
-                            material(kd=(0.2, 0.8, 0.2))], mids)
-    geom = data.geometry
-    # dedup actually happened: compact table far smaller than fused
-    assert geom.wtris_packed.shape[0] < geom.tris_packed.shape[0] / 2
-    assert geom.wdelta.shape[0] == 9
-
-    R = 512
-    k1, k2 = jax.random.split(jax.random.PRNGKey(2))
-    o = jax.random.uniform(k1, (R, 3)) * jnp.array([4.0, 4.0, 2.0]) \
-        - jnp.array([0.5, 0.5, 1.0])
-    d = jax.random.normal(k2, (R, 3))
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    tm = jnp.full((R,), 1e30)
-
-    a = trace_wide(geom, o, d, tm, interpret=True)
-    b = trace_gather(geom, o, d, tm)
-    hit_a = np.asarray(a["tri"]) >= 0
-    hit_b = np.asarray(b["tri"]) >= 0
-    assert np.array_equal(hit_a, hit_b)
-    assert np.array_equal(np.asarray(a["tri"]), np.asarray(b["tri"]))
-    np.testing.assert_allclose(np.asarray(a["t"])[hit_a],
-                               np.asarray(b["t"])[hit_b], rtol=1e-4)
-    # any-hit occlusion agrees too
-    ah = trace_wide(geom, o, d, tm, interpret=True, any_hit=True)
-    bh = trace_gather(geom, o, d, tm, any_hit=True)
-    assert np.array_equal(np.asarray(ah["tri"]) >= 0,
-                          np.asarray(bh["tri"]) >= 0)
